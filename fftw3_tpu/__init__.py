@@ -1,10 +1,10 @@
-"""fftw3_tpu — a TPU-native FFT engine with FFTW3's capability surface.
+"""fftw3_tpu — a JAX FFT engine with FFTW3's capability surface.
 
-Built from scratch for JAX/XLA/Pallas: complex DFTs, real-input/output
+Built from scratch for JAX/XLA: complex DFTs, real-input/output
 transforms, DHT, and all eight DCT/DST kinds, at any size (mixed-radix
 Stockham + Rader + Bluestein), batched and multi-dimensional, with an
 FFTW-style cost-driven planner, persistent wisdom, and a shard_map-based
-distributed tier over TPU meshes.
+distributed tier over device meshes.
 
 See SURVEY.md at the repo root for the mapping to the reference (FFTW 3.3.8).
 """

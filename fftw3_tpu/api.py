@@ -1,6 +1,6 @@
 """Public API.
 
-Two surfaces, both TPU-native (pure jittable functions underneath):
+Two surfaces, both pure jittable functions underneath:
 
 1. **FFTW-style planned API** mirroring ``fftw3.h`` semantics (reference
    ``fftw/fftw_api.c:234-1533``): ``plan_dft*``, ``plan_dft_r2c*``,
@@ -544,14 +544,14 @@ ifftshift = jnp.fft.ifftshift
 
 #: fftw_version / fftw_cc / fftw_codelet_optim analogs (fftw3.h exports
 #: these as global strings; tools print them)
-version = "fftw3_tpu-2.0 (FFTW-3.3.8 capability surface, TPU-native)"
-cc = "jax/XLA/Pallas + g++ host tier"
-codelet_optim = "stacked-split-complex Stockham, bf16 hi/lo MXU"
+version = "fftw3_tpu-2.0 (FFTW-3.3.8 capability surface, JAX/XLA)"
+cc = "jax/XLA + g++ host tier"
+codelet_optim = "split-complex Stockham matrix-product stages"
 
 
 def alloc_real(n: int, dtype="float32") -> np.ndarray:
     """fftw_alloc_real analog: a zeroed real buffer.  Alignment is XLA's
-    concern on TPU (fftw_malloc's SIMD-alignment role has no analog for
+    concern (fftw_malloc's SIMD-alignment role has no analog for
     logical arrays); provided for source compatibility."""
     return np.zeros(int(n), dtype=np.dtype(dtype))
 
@@ -569,7 +569,7 @@ def alignment_of(x) -> int:
 
 def malloc(n: int) -> np.ndarray:
     """fftw_malloc analog: a zeroed byte buffer.  SIMD alignment is
-    meaningless for logical arrays on TPU (XLA owns device layout);
+    meaningless for logical arrays (XLA owns device layout);
     provided for source compatibility (fftw3.h declares fftw_malloc
     beside the typed alloc_real/alloc_complex)."""
     return np.zeros(int(n), dtype=np.uint8)
@@ -583,7 +583,7 @@ def free(x) -> None:
 def destroy_plan(plan) -> None:
     """fftw_destroy_plan analog: a no-op — plans are garbage-collected
     (plan lifecycle, fftw_api.c mkapiplan/destroy role).  Dropping the
-    caller's reference is the TPU-native 'destroy'; cached wisdom is
+    caller's reference is the 'destroy'; cached wisdom is
     owned by the planner, not the plan (use forget_wisdom/cleanup)."""
 
 

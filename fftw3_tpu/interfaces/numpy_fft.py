@@ -1,4 +1,4 @@
-"""numpy.fft-compatible interface over the TPU engine.
+"""numpy.fft-compatible interface over the engine.
 
 Function-for-function mirror of ``numpy.fft``'s public surface, with numpy's
 norm conventions.  (The reference's equivalent "users switch by changing an

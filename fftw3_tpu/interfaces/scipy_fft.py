@@ -1,4 +1,4 @@
-"""scipy.fft-compatible interface over the TPU engine.
+"""scipy.fft-compatible interface over the engine.
 
 Mirrors ``scipy.fft``'s public surface: the complex/real FFT family plus
 DCT/DST I-IV with scipy's norm conventions ("backward" default, "ortho",

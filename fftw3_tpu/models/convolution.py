@@ -4,7 +4,7 @@
 its docs use throughout; these are the "models" of an FFT framework.)
 
 All functions are pure and jittable, route through the plan-cached engine
-(so repeated shapes reuse compiled pallas/XLA plans), and support 'full',
+(so repeated shapes reuse compiled XLA plans), and support 'full',
 'same', 'valid' modes with real or complex inputs, batched over leading
 dimensions.
 """

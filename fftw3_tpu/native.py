@@ -1,7 +1,7 @@
 """ctypes bindings for the native C++ runtime tier.
 
 The reference's kernel tier is native C (SURVEY.md §2.1); here the
-device-compute path is XLA/Pallas, and the *host-side* runtime — problem
+device-compute path is XLA, and the *host-side* runtime — problem
 hashing, prime arithmetic, the wisdom store, and the deterministic
 ESTIMATE-mode planner search — is C++ (``native/src/fftw3_tpu_native.cpp``),
 loaded via ctypes.  Everything has a pure-Python fallback: ``available()``
@@ -93,14 +93,13 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.ftpu_wisdom_export.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                            ctypes.c_int64]
         lib.ftpu_wisdom_export.restype = ctypes.c_int64
+        hw_args = [ctypes.c_double] * 5
         lib.ftpu_plan_c2c.argtypes = [
-            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_double,
-            ctypes.c_double, ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_char_p, ctypes.c_int64]
+            ctypes.c_int64, ctypes.c_int32, *hw_args, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_char_p, ctypes.c_int64]
         lib.ftpu_plan_c2c.restype = ctypes.c_int64
         lib.ftpu_plan_kind.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_double, ctypes.c_double, ctypes.c_double,
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, *hw_args,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
             ctypes.c_int64]
         lib.ftpu_plan_kind.restype = ctypes.c_int64
@@ -168,7 +167,13 @@ def divisors(n: int):
         cap = cnt
 
 
-def plan_c2c(n: int, patience: int, allow_pallas: bool, hw) -> Optional[Dict]:
+def _hw_args(hw):
+    """The cost-model rates the C++ search reads (planner.HardwareModel)."""
+    return (hw.hbm_bw, hw.matmul_flops, hw.elem_flops, float(hw.matmul_k),
+            hw.gather_penalty)
+
+
+def plan_c2c(n: int, patience: int, hw) -> Optional[Dict]:
     """Native ESTIMATE-mode c2c search; None if the library is unavailable.
 
     Mirrors Planner._candidates_c2c + _c2c_cost policy exactly (equality is
@@ -182,9 +187,8 @@ def plan_c2c(n: int, patience: int, allow_pallas: bool, hw) -> Optional[Dict]:
     while True:
         buf = ctypes.create_string_buffer(cap)
         need = lib.ftpu_plan_c2c(
-            n, patience, int(allow_pallas), hw.hbm_bw, hw.peak_flops,
-            hw.vpu_flops, planner_mod.DIRECT_MAX, planner_mod.GENERIC_MAX,
-            buf, cap)
+            n, patience, *_hw_args(hw), planner_mod.DIRECT_MAX,
+            planner_mod.GENERIC_MAX, buf, cap)
         if need < 0:
             return None
         if need <= cap:
@@ -192,8 +196,7 @@ def plan_c2c(n: int, patience: int, allow_pallas: bool, hw) -> Optional[Dict]:
         cap = int(need)
 
 
-def plan_kind(kind: str, n: int, patience: int, allow_pallas: bool,
-              hw) -> Optional[Dict]:
+def plan_kind(kind: str, n: int, patience: int, hw) -> Optional[Dict]:
     """Native ESTIMATE-mode search for ANY transform kind ("c2c", "r2c",
     "c2r", or an r2r kind name); None if the library is unavailable.
     Mirrors Planner._candidates + _cost exactly (equality unit-tested)."""
@@ -205,9 +208,9 @@ def plan_kind(kind: str, n: int, patience: int, allow_pallas: bool,
     while True:
         buf = ctypes.create_string_buffer(cap)
         need = lib.ftpu_plan_kind(
-            kind.encode(), n, patience, int(allow_pallas), hw.hbm_bw,
-            hw.peak_flops, hw.vpu_flops, planner_mod.DIRECT_MAX,
-            planner_mod.GENERIC_MAX, planner_mod.R2R_GENERIC_MAX, buf, cap)
+            kind.encode(), n, patience, *_hw_args(hw),
+            planner_mod.DIRECT_MAX, planner_mod.GENERIC_MAX,
+            planner_mod.R2R_GENERIC_MAX, buf, cap)
         if need < 0:
             return None
         if need <= cap:

@@ -7,32 +7,27 @@ is FFTW_FORWARD (-1) or FFTW_BACKWARD (+1).
 
 The core representation is **split complex**: every algorithm is built as a
 function ``(xr, xi) -> (yr, yi)`` on real arrays (:func:`build_c2c_split`).
-This is the TPU-native choice — the MXU/VPU are real-arithmetic units, XLA
-lowers complex ops to real ones anyway, and the split form (a) lets us use
-the 3-real-matmul Karatsuba complex product instead of XLA's 4, (b) feeds
-the Pallas fused-Stockham kernels directly, and (c) crosses the host<->TPU
-boundary (which cannot carry complex arrays on some transports).
+Matrix units are real-arithmetic units and XLA lowers complex ops to real
+ones anyway; the split form lets us use the 3-real-matmul Karatsuba complex
+product instead of XLA's 4.
 :func:`build_c2c` wraps it back into a complex-in/complex-out closure.
 
 Solver map to the reference (see SURVEY.md section 2.3):
 
 * ``nop``       — dft-nop               (fftw/fftw_api.c:3959-4012)
 * ``direct``    — dft-direct + dft-generic, unified: a whole-transform DFT
-                  matrix multiply.  On TPU this is the *right* leaf: an
-                  (B, n) @ (n, n) matmul runs on the MXU
-                  (fftw_api.c:3131-3377, :3390-3519)
+                  matrix multiply; an (B, n) @ (n, n) matmul runs on the
+                  matrix units (fftw_api.c:3131-3377, :3390-3519)
 * ``mixed``     — dft-ct Cooley-Tukey, in the transposed four-step (Stockham
                   autosort) formulation: no bit reversal, every stage is a
                   batched matmul + twiddle + transpose (fftw_api.c:2068-3103)
-* ``pallas``    — the fused multi-stage Stockham pipeline as ONE Pallas
-                  kernel (whole transform in VMEM, single HBM pass); the
-                  codelet tier analog (SURVEY.md §2.6), see pallas_stockham.py
 * ``rader``     — dft-rader, prime n via (n-1)-point cyclic convolution
                   (fftw_api.c:4139-4413)
 * ``bluestein`` — dft-bluestein, any n via chirp-z convolution at a padded
                   smooth size m >= 2n-1 (fftw_api.c:1598-1804)
-* ``xla``       — delegate to XLA's built-in FFT custom-call; registered as a
-                  competitor the planner may time against (no FFTW analog).
+* ``xla``       — delegate to XLA's built-in FFT (cuFFT on an NVIDIA GPU);
+                  registered as a competitor the planner may time against
+                  (no FFTW analog).
 """
 from __future__ import annotations
 
@@ -155,7 +150,7 @@ def build_c2c_split(desc: Dict, sign: int, rdtype) -> SplitApply:
 
         def dotp(a, M):
             # contract the p axis in place; XLA folds the layout into the
-            # dot (no materialized transposes around the MXU)
+            # dot (no materialized transposes around the product)
             return jnp.einsum("...pq,pk->...kq", a, M, precision=prec)
 
         def apply_mixed(xr, xi):
@@ -175,19 +170,6 @@ def build_c2c_split(desc: Dict, sign: int, rdtype) -> SplitApply:
     if alg == "df32":
         from . import df32
         return df32.build_df32_c2c_split(desc, sign, rdtype)
-
-    if alg == "df32p":
-        from . import df32
-        return df32.build_df32_pallas_split(desc, sign, rdtype)
-
-    if alg == "pallas":
-        from . import pallas_stockham
-        return pallas_stockham.build_pallas_c2c_split(desc, sign, rdtype)
-
-    if alg == "pallas4":
-        from . import pallas_stockham
-        return pallas_stockham.build_pallas_c2c_split_fourstep(desc, sign,
-                                                               rdtype)
 
     if alg == "bluestein":
         m = desc["m"]
@@ -262,39 +244,6 @@ def build_c2c_split(desc: Dict, sign: int, rdtype) -> SplitApply:
 # one 1-D transform, in real operations.
 # ---------------------------------------------------------------------------
 
-def _vpu_stage_opcount(p: int) -> tuple:
-    """(real adds, real muls) of ONE size-p pure-f32 VPU DFT
-    (pallas_stockham._vpu_dft): radix-4 butterflies are 16 real adds per
-    4-point column (radix-2 tail: 4; radix-5: 32 adds + 16 rotation
-    muls; radix-3: 12 + 4); level twiddles cost 4 mul + 2 add each
-    EXCEPT the ones the builder snaps to +-1/+-i (mirrors the snap test
-    exactly)."""
-    import numpy as np
-
-    if p == 1:
-        return (0.0, 0.0)
-    if p % 4 == 0:
-        r = 4
-    elif p % 2 == 0:
-        r = 2
-    elif p % 5 == 0:
-        r = 5
-    else:
-        r = 3
-    q = p // r
-    add = {4: 16.0, 2: 4.0, 5: 32.0, 3: 12.0}[r] * q
-    mul = {4: 0.0, 2: 0.0, 5: 16.0, 3: 4.0}[r] * q
-    if q > 1:
-        for k1 in range(1, r):
-            for j2 in range(q):
-                w = np.exp(-2j * np.pi * ((j2 * k1) % p) / p)
-                if min(abs(w - e) for e in (1, -1, 1j, -1j)) >= 1e-12:
-                    mul += 4.0
-                    add += 2.0
-    ca, cm = _vpu_stage_opcount(q)
-    return (add + r * ca, mul + r * cm)
-
-
 def c2c_opcount(desc: Dict) -> Dict[str, float]:
     alg, n = desc["alg"], desc["n"]
     if alg == "nop" or n == 1:
@@ -312,7 +261,7 @@ def c2c_opcount(desc: Dict) -> Dict[str, float]:
             "fma": 3.0 * p * p * q + p * child["fma"],
         }
     if alg == "df32":
-        # underlying f32 VPU ops of the double-float pipeline (df add = 11
+        # underlying f32 ops of the double-float pipeline (df add = 11
         # real adds; df mul = 9 mul + 12 add; complex df mul = 4 df mul +
         # 2 df add): per stage n(p-1) complex df adds, plus (p-1)^2 dense
         # butterfly products per group for p not in {2, 4} (whose +-1/+-i
@@ -324,69 +273,6 @@ def c2c_opcount(desc: Dict) -> Dict[str, float]:
             cadd = n * (p - 1)
             total["add"] += cadd * 22.0 + cmul * 70.0
             total["mul"] += cmul * 36.0
-        return total
-    if alg == "df32p":
-        # fused df kernel: the _vpu_dft butterfly structure in df
-        # arithmetic.  Map the f32 stage counts (a adds, m muls with 4
-        # muls per cmul) to df costs: add -> df add (11 f32 adds), cmul
-        # -> df cmul (36 mul + 70 add); plus the stage twiddle as one df
-        # cmul per point on every stage but the last.
-        total = {"add": 0.0, "mul": 0.0, "fma": 0.0}
-        rest = n
-        for p in desc["radices"]:
-            q = rest // p
-            a, m = _vpu_stage_opcount(p)
-            cm = m / 4.0
-            total["add"] += (a * 11.0 + cm * 70.0) * (n / p)
-            total["mul"] += cm * 36.0 * (n / p)
-            if q > 1:
-                total["add"] += 70.0 * n
-                total["mul"] += 36.0 * n
-            rest = q
-        return total
-    if alg == "pallas":
-        # EXACT counts of the stacked-G implementation: each stage is one
-        # (2p, 2p) @ (2p, n/p) real contraction per transform -> 4*p*n
-        # MACs, plus the complex twiddle (4 mul + 2 add per point) on
-        # every stage but the last.  A desc-pinned VPU final stage
-        # (desc["vpu"], pallas_stockham._vpu_dft) replaces the final
-        # contraction with radix-4/2 butterfly adds + the exact count of
-        # non-snapped level-twiddle cmuls.
-        from . import pallas_stockham
-
-        total = {"add": 0.0, "mul": 0.0, "fma": 0.0}
-        rest = n
-        last = len(desc["radices"]) - 1
-        vpu = desc.get("vpu")
-        for si, p in enumerate(desc["radices"]):
-            q = rest // p
-            if (vpu and (si == last or vpu == "all")
-                    and pallas_stockham._vpu_last_ok(p, 1)):
-                a, m = _vpu_stage_opcount(p)
-                total["add"] += a * (n / p)
-                total["mul"] += m * (n / p)
-            else:
-                total["fma"] += 4.0 * p * n
-            if q > 1:
-                total["mul"] += 4.0 * n
-                total["add"] += 2.0 * n
-            rest = q
-        return total
-    if alg == "pallas4":
-        # inner axis pass over p + pretwiddled outer pass over q, each with
-        # its own radix schedule (exact per the stacked-G implementation)
-        from . import pallas_stockham
-        total = {"add": 0.0, "mul": 4.0 * n, "fma": 0.0}   # four-step tw
-        total["add"] += 2.0 * n
-        for f in (desc["p"], desc["q"]):
-            rest = f
-            for r in pallas_stockham.choose_radices(f):
-                q2 = rest // r
-                total["fma"] += 4.0 * r * n       # (n/f)*4*r*f MACs
-                if q2 > 1:
-                    total["mul"] += 4.0 * n
-                    total["add"] += 2.0 * n
-                rest = q2
         return total
     if alg == "bluestein":
         child = c2c_opcount(desc["child"])

@@ -3,9 +3,9 @@ analog (FFTW's ``fftwl_``/``fftwq_`` library variants,
 ``fftw/fftw_api.h:102-118`` precision-prefix machinery, ``fftw3l.f03`` /
 ``fftw3q.f03``).
 
-TPU has no arithmetic above f64 (itself already XLA-software-emulated),
-and XLA has no f128 type — so a *hardware* long-double/quad tier cannot
-exist.  The TPU-native construction is the same one the df32 tier uses
+XLA has no f128 type and the accelerators have no arithmetic above f64,
+so a *hardware* long-double/quad tier cannot exist.  The construction
+here is the same one the df32 tier uses
 one level up: every value travels as an UNEVALUATED SUM of two f64s and
 every operation is an error-free transform (Dekker two-product with the
 2^27+1 split, Knuth two-sum — the dtype-generic ``df_*`` ops in
@@ -159,7 +159,7 @@ class DdPlan:
 
         def bwd(_, g):
             # adjoint of the unnormalized linear map = opposite-sign
-            # transform (same custom-VJP policy as df32/pallas: autodiff
+            # transform (same custom-VJP policy as df32: autodiff
             # through error-free chains loses the lo planes)
             return adj(tuple(g))
 

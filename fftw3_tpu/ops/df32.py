@@ -4,15 +4,12 @@ tier.
 Every value travels as an UNEVALUATED SUM of two f32s (hi + lo, |lo| <=
 ulp(hi)/2), and every multiply/add uses error-free transforms (Dekker
 two-product via exact splitting, Knuth two-sum) so the pair behaves like a
-~49-bit-mantissa float computed entirely in f32 VPU arithmetic.  That is
-the TPU-native answer to double precision: the v5e has no f64 units, so
-XLA *emulates* f64 matmuls at ~4 GFLOPS, while this tier runs the whole
-transform as elementwise f32 chains the VPU executes at rate, reaching
-~1e-13 relative error — comfortably inside FFTW's double-precision verify
-contract of 1e-10 (``fftw/libbench2/bench-main.c:70``, tolerance ladder
-``verify.py``).  The planner races it against the emulated-f64 path for
-``dtype=complex128`` plans (VERDICT r2 item 6: the tier between bf16x3
-and XLA-f64).
+~49-bit-mantissa float computed entirely in f32 arithmetic, reaching
+~1e-13 relative error — inside FFTW's double-precision verify contract of
+1e-10 (``fftw/libbench2/bench-main.c:70``, tolerance ladder
+``verify.py``).  It serves devices whose f64 is slow or emulated; the
+planner races it against the native f64 solvers for ``dtype=complex128``
+plans.
 
 Structure: a recursive mixed-radix Cooley-Tukey identical in shape to the
 ``mixed`` small-radix butterfly solver (``c2c.py`` apply_mixed_bfly) —
@@ -207,10 +204,9 @@ def build_df32_c2c_split(desc: Dict, sign: int, rdtype):
 
     Differentiation: autodiff THROUGH the error-free-transform chains
     yields only f32-accurate adjoints (the cotangents ride the hi planes),
-    so — exactly like the Pallas kernels' custom VJPs — the adjoint of
-    this unnormalized linear map is implemented as the opposite-sign df32
-    transform: J^T = conj(F) for symmetric F, keeping gradients at df
-    accuracy."""
+    so the adjoint of this unnormalized linear map is implemented as the
+    opposite-sign df32 transform: J^T = conj(F) for symmetric F, keeping
+    gradients at df accuracy."""
     n = desc["n"]
     radices = desc["radices"]
     rdtype = np.dtype(rdtype)
@@ -237,358 +233,6 @@ def build_df32_c2c_split(desc: Dict, sign: int, rdtype):
 
     def bwd(_, g):
         return _run(core_adj, g[0], g[1])
-
-    apply.defvjp(fwd, bwd)
-    return apply
-
-
-# ---------------------------------------------------------------------------
-# Fused Pallas df32 kernel ("df32p"): the XLA df32 pipeline above runs each
-# stage as separate elementwise HBM sweeps of the four f32 planes; this
-# form keeps a (TB, n) block of all four planes VMEM-resident through every
-# Stockham stage — one HBM read + write per point, like the f32 pallas
-# kernel (pallas_stockham.py) but in double-float arithmetic throughout.
-# The v5e answer to FFTW's double precision AT SPEED: no MXU (no f64 MXU
-# exists), pure VPU error-free-transform chains.
-# ---------------------------------------------------------------------------
-
-#: df32p fused-kernel VMEM window: four f32 planes + df temporaries is
-#: ~2x the f32 c2c working set, which capped at n=2048 — stay at 1024.
-DF32P_MIN_N = 128
-DF32P_MAX_N = 1024
-DF32P_TILE_B = 128
-
-
-def _df_scal(x: complex) -> Tuple:
-    """Host complex -> 4 f32 scalar values (rh, rl, ih, il)."""
-    rh = np.float32(x.real)
-    rl = np.float32(x.real - np.float64(rh))
-    ih = np.float32(x.imag)
-    il = np.float32(x.imag - np.float64(ih))
-    return rh, rl, ih, il
-
-
-def _df_radix(m: int) -> int:
-    if m % 4 == 0:
-        return 4
-    if m % 2 == 0:
-        return 2
-    if m % 5 == 0:
-        return 5
-    assert m % 3 == 0, m          # gate admits 2-3-5-smooth only
-    return 3
-
-
-def _df_bfly_consts(m: int, sign: int) -> List[np.ndarray]:
-    """Flat f32 operand list the size-m df butterfly consumes, in the
-    exact order _df_vpu_dft reads it: per recursion node, the radix-3/5
-    coefficient df pairs, then (q, 1) level-twiddle df pairs for
-    k1 = 1..r-1, then the child subtree ONCE (all r children share it).
-
-    These MUST be runtime operands, not trace-time scalar literals: XLA's
-    algebraic simplifier reassociates constant products (ah*bh + ah*bl ->
-    ah*(bh+bl)), silently collapsing the Dekker/Knuth error-free
-    transforms back to f32 (measured: 1e-7 instead of 5e-15, firing
-    context-dependently).  Operand arrays are opaque to the simplifier —
-    and they satisfy the no-array-constants-in-Pallas-kernels rule."""
-    if m == 1:
-        return []
-    r = _df_radix(m)
-    q = m // r
-    out: List[np.ndarray] = []
-    if r == 3:
-        coeffs = [np.exp(sign * 2j * np.pi / 3),
-                  np.exp(sign * 4j * np.pi / 3)]
-    elif r == 5:
-        coeffs = [np.exp(sign * 2j * np.pi * k / 5) for k in range(1, 5)]
-    else:
-        coeffs = []
-    for w in coeffs:
-        out += [np.full((1, 1), v, np.float32) for v in _df_scal(w)]
-    if q > 1:
-        for k1 in range(1, r):
-            e = (np.arange(q, dtype=np.int64) * k1) % m
-            w = np.exp(sign * 2j * np.pi * e / m)
-            rh, rl = _split_const(w.real)
-            ih, il = _split_const(w.imag)
-            out += [a.reshape(q, 1) for a in (rh, rl, ih, il)]
-    return out + _df_bfly_consts(q, sign)
-
-
-def _df_vpu_dft(x, m, sign, consts, off=0):
-    """df32 mirror of pallas_stockham._vpu_dft: size-m DFT over axis 0 of
-    four (m, R) planes (rh, rl, ih, il), natural order, radix-4/2/5/3
-    recursion.  ``consts``/``off``: the _df_bfly_consts operand stream
-    (refs or arrays; loaded with [...]).  Returns (planes, next_off)."""
-    if m == 1:
-        return x, off
-    r = _df_radix(m)
-    q = m // r
-    R = x[0].shape[-1]
-    x3 = [tuple(v.reshape(r, q, R)[j] for v in x) for j in range(r)]
-
-    def grab4():
-        nonlocal off
-        c = tuple(consts[off + i][...] for i in range(4))
-        off += 4
-        return c
-
-    def imul(a):               # a * (i*sign)
-        if sign < 0:
-            return (a[2], a[3], -a[0], -a[1])
-        return (-a[2], -a[3], a[0], a[1])
-
-    if r == 2:
-        b = [df_cadd(x3[0], x3[1]), df_csub(x3[0], x3[1])]
-    elif r == 4:
-        t0 = df_cadd(x3[0], x3[2])
-        t1 = df_csub(x3[0], x3[2])
-        t2 = df_cadd(x3[1], x3[3])
-        t3 = df_csub(x3[1], x3[3])
-        u3 = imul(t3)
-        b = [df_cadd(t0, t2), df_cadd(t1, u3),
-             df_csub(t0, t2), df_csub(t1, u3)]
-    elif r == 3:
-        w1, w2 = grab4(), grab4()
-        b = [df_cadd(x3[0], df_cadd(x3[1], x3[2])),
-             df_cadd(x3[0], df_cadd(df_cmul(x3[1], w1),
-                                    df_cmul(x3[2], w2))),
-             df_cadd(x3[0], df_cadd(df_cmul(x3[1], w2),
-                                    df_cmul(x3[2], w1)))]
-    else:                      # r == 5: direct coefficient form, w^1..w^4
-        ws = [grab4() for _ in range(4)]
-        b = []
-        for k1 in range(5):
-            acc = x3[0]
-            for j1 in range(1, 5):
-                if k1 == 0:
-                    acc = df_cadd(acc, x3[j1])
-                else:
-                    acc = df_cadd(acc, df_cmul(
-                        x3[j1], ws[(j1 * k1) % 5 - 1]))
-            b.append(acc)
-    if q > 1:
-        # ONE vectorized df cmul per k1 against the (q, 1) operand pairs
-        # (no per-row scalar chains; the k1 = 0 row needs none)
-        for k1 in range(1, r):
-            b[k1] = df_cmul(b[k1], grab4())
-    zs = []
-    child_off = off
-    for k1 in range(r):
-        z, off = _df_vpu_dft(b[k1], q, sign, consts, child_off)
-        zs.append(z)
-    y = tuple(jnp.stack([z[i] for z in zs], axis=1).reshape(m, R)
-              for i in range(4))
-    return y, off
-
-
-def _df_stage_consts(n: int, radices, sign: int):
-    """Per-stage operand list: the stage's (p, q) df twiddle pairs (q > 1
-    stages), then the radix-p butterfly's const stream."""
-    out = []
-    rest = n
-    for p in radices:
-        q = rest // p
-        stage: List[np.ndarray] = []
-        if q > 1:
-            e = np.mod(np.outer(np.arange(p, dtype=np.int64),
-                                np.arange(q, dtype=np.int64)), rest)
-            w = np.exp(sign * 2j * np.pi * e / rest)
-            rh, rl = _split_const(w.real)
-            ih, il = _split_const(w.imag)
-            stage += [rh, rl, ih, il]
-        stage += _df_bfly_consts(p, sign)
-        out.append(stage)
-        rest = q
-    return out
-
-
-def _df_stages(radices, n, tb, crefs, x, sign):
-    """Stockham stage loop on four (n, TB) df planes (p-major layout,
-    identical indexing to pallas_stockham._stages, minus the G matmul —
-    every stage is a _df_vpu_dft, the twiddle a broadcast df_cmul
-    against the (p, q) const pairs, the permute a per-plane major-dim
-    transpose)."""
-    done = 1
-    rest = n
-    ci = 0
-    for p in radices:
-        q = rest // p
-        M = q * done * tb
-        if q > 1:
-            w = tuple(crefs[ci + i] for i in range(4))
-            ci += 4
-        y, ci = _df_vpu_dft(tuple(v.reshape(p, M) for v in x), p, sign,
-                            crefs, ci)
-        if q > 1:
-            sh = (p, q) + ((1, 1) if done > 1 else (1,))
-            wv = tuple(v[...].reshape(sh) for v in w)
-            y3 = tuple(v.reshape((p, q) + ((done, tb) if done > 1
-                                           else (tb,))) for v in y)
-            tw = df_cmul(y3, wv)
-            # (p, q, done, TB) -> (q, p, done, TB), per plane
-            if done == 1:
-                x = tuple(jnp.transpose(v.reshape(p, q, tb), (1, 0, 2))
-                          .reshape(q * p, tb) for v in tw)
-            else:
-                x = tuple(jnp.transpose(v.reshape(p, q, done, tb),
-                                        (1, 0, 2, 3)).reshape(
-                    q * p * done, tb) for v in tw)
-        else:
-            x = tuple(v.reshape(p * done, tb) for v in y)
-        done *= p
-        rest = q
-    return x
-
-
-def _kernel_df32(radices, n, tb, sign, *refs):
-    """Blocks: four (TB, n) f32 planes in -> four out; transpose to
-    plane-in-lanes (n, TB) in VMEM like the f32 kernel (2-D transposes
-    measured free)."""
-    ins = refs[:4]
-    outs = refs[-4:]
-    crefs = refs[4:-4]
-    x = tuple(jnp.transpose(r[...]) for r in ins)
-    y = _df_stages(radices, n, tb, crefs, x, sign)
-    for o, v in zip(outs, y):
-        o[...] = jnp.transpose(v)
-
-
-def _make_call_df32(n, radices, sign, tb, interpret):
-    from functools import partial
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from . import pallas_stockham as ps
-
-    consts = _df_stage_consts(n, radices, sign)
-    flat_consts = [c for stage in consts for c in stage]
-    const_specs = [pl.BlockSpec(c.shape, lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-                   for c in flat_consts]
-    kernel = partial(_kernel_df32, tuple(radices), n, tb, sign)
-    data_spec = pl.BlockSpec((tb, n), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-
-    def run(planes):
-        B = planes[0].shape[0]
-        fn = pl.pallas_call(
-            kernel,
-            grid=(B // tb,),
-            in_specs=[data_spec] * 4 + const_specs,
-            out_specs=[data_spec] * 4,
-            out_shape=[jax.ShapeDtypeStruct((B, n), jnp.float32)] * 4,
-            interpret=interpret,
-            cost_estimate=pl.CostEstimate(
-                flops=int(40 * n * sum(radices) * B),
-                bytes_accessed=int(8 * B * n * 4),
-                transcendentals=0),
-        )
-        # kernel traced with 32-bit index semantics: the df32p boundary
-        # NEEDS ambient x64 (f64 planes outside), but tracing the all-f32
-        # kernel under x64 crashes the Mosaic compile helper (see
-        # pallas_stockham._x64_off)
-        with ps._x64_off():
-            return fn(*planes, *flat_consts)
-
-    return run
-
-
-def df32p_radices(n: int) -> Optional[List[int]]:
-    """Schedule for the fused df32 kernel: every radix must be butterfly-
-    eligible (2-3-5-smooth <= 64), so the f32 tier's single-stage window
-    (one big MXU matmul — meaningless here) falls back to the best
-    two-factor eligible split."""
-    from ..utils import primes
-    from . import pallas_stockham as ps
-
-    def ok(rad):
-        return all(ps._vpu_last_ok(r, 1) for r in rad)
-
-    try:
-        rad = ps.choose_radices(n)
-        if ok(rad):
-            return rad
-    except ValueError:
-        pass
-    best = None
-    best_cost = None
-    for p in primes.divisors(n):
-        q = n // p
-        if p < 2 or q < 2 or not ok([p, q]):
-            continue
-        cost = ps._stage_cost(p) + ps._stage2_cost(q)
-        if best is None or cost < best_cost:
-            best, best_cost = [p, q], cost
-    return best
-
-
-def df32p_applicable(n: int) -> bool:
-    """Fused df32 kernel gate: an all-eligible schedule exists, inside
-    the (halved) VMEM window, pallas backend up."""
-    from . import pallas_stockham as ps
-
-    if not (DF32P_MIN_N <= n <= DF32P_MAX_N):
-        return False
-    if ps.config.pallas_mode == "off":
-        return False
-    if (ps.config.pallas_mode == "auto"
-            and jax.default_backend() != "tpu"):
-        return False
-    return df32p_radices(n) is not None
-
-
-def build_df32_pallas_split(desc: Dict, sign: int, rdtype):
-    """SplitApply builder for ``{"alg": "df32p", "n": n, "radices": [..]}``
-    — the fused VMEM-resident double-float kernel.  Same boundary contract
-    and custom-VJP policy as build_df32_c2c_split."""
-    from . import pallas_stockham as ps
-
-    n = desc["n"]
-    radices = desc.get("radices") or df32p_radices(n)
-    tb = DF32P_TILE_B
-    mode = ps.config.pallas_mode
-    if mode == "auto":
-        interpret = jax.default_backend() != "tpu"
-    elif mode == "interpret":
-        interpret = True
-    else:
-        interpret = False
-    call = _make_call_df32(n, radices, sign, tb, interpret)
-    adj_call = [None]
-    rdtype = np.dtype(rdtype)
-
-    def _run(xr, xi, c):
-        shp = xr.shape[:-1]
-        B = int(np.prod(shp)) if shp else 1
-        xr2 = xr.reshape(B, n).astype(rdtype)
-        xi2 = xi.reshape(B, n).astype(rdtype)
-        rh = xr2.astype(jnp.float32)
-        ih = xi2.astype(jnp.float32)
-        rl = (xr2 - rh.astype(rdtype)).astype(jnp.float32)
-        il = (xi2 - ih.astype(rdtype)).astype(jnp.float32)
-        Bp = -(-B // tb) * tb
-        planes = (rh, rl, ih, il)
-        if Bp != B:
-            planes = tuple(jnp.pad(v, ((0, Bp - B), (0, 0)))
-                           for v in planes)
-        yrh, yrl, yih, yil = (v[:B] for v in c(planes))
-        yr = yrh.astype(rdtype) + yrl.astype(rdtype)
-        yi = yih.astype(rdtype) + yil.astype(rdtype)
-        return yr.reshape(*shp, n), yi.reshape(*shp, n)
-
-    @jax.custom_vjp
-    def apply(xr, xi):
-        return _run(xr, xi, call)
-
-    def fwd(xr, xi):
-        return apply(xr, xi), None
-
-    def bwd(_, g):
-        if adj_call[0] is None:
-            adj_call[0] = _make_call_df32(n, radices, -sign, tb, interpret)
-        return _run(g[0], g[1], adj_call[0])
 
     apply.defvjp(fwd, bwd)
     return apply

@@ -1,6 +1,6 @@
 """Host-side transform-matrix and twiddle-factor construction.
 
-The TPU-native analog of FFTW's triggen/twiddle machinery
+The analog of FFTW's triggen/twiddle machinery
 (reference ``fftw/fftw_api.c:18850-19263``): all trigonometric constants are
 computed **on the host in float64** (FFTW computes trig in a wider
 ``trigreal``, ``fftw/fftw_api.h:1053-1057``) and only then cast to the compute

@@ -26,9 +26,9 @@ reduces to R2HC (reference ``fftw/fftw_api.c:11705-14160``):
   halving the convolution work.  The cas kernel's DFT is precomputed on
   the host in f64 with exact integer exponents.
 * ``r2hc_via_r2c`` / ``hc2r_via_c2r`` — halfcomplex packing of the real DFT.
-* ``r2r_matmul`` — dense-matrix fallback for any kind/size; on TPU an (n,n)
-  matmul is MXU-native and genuinely competitive at small n (the planner
-  decides), taking the role of FFTW's generic O(n^2) solvers.
+* ``r2r_matmul`` — dense-matrix fallback for any kind/size; an (n,n)
+  matmul runs on the matrix units and is competitive at small n (the
+  planner decides), taking the role of FFTW's generic O(n^2) solvers.
 """
 from __future__ import annotations
 

@@ -7,8 +7,8 @@ inverse (``c2r(r2c(x)) = n*x``).
 Solver map to the reference (SURVEY.md section 2.4):
 
 * ``r2c_pack`` / ``c2r_pack`` — even n via a half-size complex DFT over
-  packed even/odd samples plus an untangling twiddle pass; this is the
-  TPU-shaped replacement for the rdft2-ct-hc2c codelet path
+  packed even/odd samples plus an untangling twiddle pass; the
+  replacement for the rdft2-ct-hc2c codelet path
   (fftw/fftw_api.c:5552-6190).
 * ``r2c_via_c2c`` / ``c2r_via_c2c`` — any n by complex embedding /
   Hermitian extension (rdft2-rdft analog, fftw/fftw_api.c:6482-6761).
@@ -36,14 +36,10 @@ def build_r2c(desc: Dict, rdtype) -> Apply:
     n = desc["n"]
     ctype = c2c_ops.complex_dtype(rdtype)
 
-    if alg == "pallas_r2c":
-        from . import pallas_stockham
-        return pallas_stockham.build_pallas_r2c(desc, rdtype)
-
     if alg == "r2c_dense":
-        # dense cos/sin matrices on the MXU: ~2n real flops/point, measured
-        # MXU-bound and far below the reduction path's elementwise passes
-        # for n <= ~4k (the dft-generic idea, profitable on TPU)
+        # dense cos/sin matrices on the matrix units: ~2n real flops/point
+        # in one pass, against the reduction path's elementwise passes
+        # (the dft-generic idea)
         m = n // 2 + 1
         j = np.arange(n, dtype=np.int64)[:, None]
         k = np.arange(m, dtype=np.int64)[None, :]
@@ -91,10 +87,6 @@ def build_c2r(desc: Dict, rdtype) -> Apply:
     alg = desc["alg"]
     n = desc["n"]
     ctype = c2c_ops.complex_dtype(rdtype)
-
-    if alg == "pallas_c2r":
-        from . import pallas_stockham
-        return pallas_stockham.build_pallas_c2r(desc, rdtype)
 
     if alg == "c2r_dense":
         m = n // 2 + 1
@@ -155,19 +147,6 @@ def r2c_opcount(desc: Dict) -> Dict[str, float]:
     if desc["alg"] in ("r2c_dense", "c2r_dense"):
         mac = 2.0 * n * (n // 2 + 1)
         return {"add": mac, "mul": 0.0, "fma": mac}
-    if desc["alg"] in ("pallas_r2c", "pallas_c2r"):
-        m = n // 2
-        total = {"add": 4.0 * n, "mul": 4.0 * n, "fma": 0.0}
-        rest = m
-        for p in desc["radices"]:
-            q = rest // p
-            batch = m // rest
-            total["add"] += 3.0 * p * p * q * batch
-            total["fma"] += 3.0 * p * p * q * batch
-            if q > 1:
-                total["mul"] += 6.0 * rest * batch
-            rest = q
-        return total
     child = c2c_ops.c2c_opcount(desc["child"])
     extra = 6.0 * (n // 2 + 1)
     return {"add": child["add"] + extra, "mul": child["mul"] + extra,

@@ -4,7 +4,7 @@ The reference exports dimension-suffixed and "many" planner entry points
 (``fftw/mpi/fftw3-mpi.h`` XM() list: plan_dft_2d/3d, plan_dft_r2c_2d/3d,
 plan_dft_c2r_2d/3d, plan_r2r_2d/3d, plan_many_dft{,_r2c,_c2r},
 plan_many_r2r, plan_many_transpose, ddim, cleanup).  These are thin
-delegations onto the shard_map planners in ``dist.py`` — the TPU-native
+delegations onto the shard_map planners in ``dist.py`` — the JAX
 semantics (mesh + axis_name instead of an MPI communicator) are
 documented there.
 

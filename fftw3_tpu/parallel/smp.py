@@ -7,7 +7,7 @@ per-axis row loops of rank-geq2 solvers (reference ``fftw/threads/``:
 api.c:69-80 records nthreads, the ``*-vrank-geq1.c``/``ct.c`` solvers
 shard loop ranges across the worker pool; SURVEY.md §2.8).
 
-The TPU-native analog of "k threads on one shared-memory node" is k
+The JAX analog of "k threads on one shared-memory node" is k
 locally-attached devices on one host.  This module gives every plan
 created while ``threads.planner_nthreads() > 1`` a parallel EXECUTE path
 over a k-device 1-D mesh:
@@ -98,10 +98,9 @@ def _build(plan, mesh: Mesh) -> Optional[Callable]:
     d = _vector_dim(plan.in_shape, prob.axes, k)
     if d is not None:
         spec = P(*[("smp" if i == d else None) for i in range(nd)])
-        # check_vma=False: pallas_call outputs carry no vma annotation, so
-        # the default varying-across-mesh check rejects Pallas-solver plans
-        # at trace time.  This split is a pure batch shard (no collectives),
-        # so the check is vacuous here anyway.
+        # check_vma=False: this split is a pure batch shard (no
+        # collectives), so the varying-across-mesh check is vacuous here,
+        # and it would reject solver outputs that carry no vma annotation.
         inner = jax.shard_map(plan.apply, mesh=mesh,
                               in_specs=spec, out_specs=spec,
                               check_vma=False)

@@ -44,7 +44,7 @@ def broadcast_wisdom() -> None:
 
 def gather_wisdom() -> None:
     """Every host's wisdom is merged into every host (symmetric version of
-    fftw_mpi_gather_wisdom; an allgather is the natural TPU collective —
+    fftw_mpi_gather_wisdom; an allgather is the natural mesh collective —
     host 0 holding the union is the FFTW post-state, and here all do)."""
     import jax
     from jax.experimental import multihost_utils as mhu

@@ -1,8 +1,8 @@
 """SMP-threads API (``fftw/threads/api.c`` analog).
 
 FFTW's threads layer (reference ``fftw/threads/``, SURVEY.md §2.8) adds a
-worker pool plus solvers that shard loop ranges across threads.  The
-TPU-native worker pool is the host's set of locally-attached devices:
+worker pool plus solvers that shard loop ranges across threads.  Here the
+worker pool is the host's set of locally-attached devices:
 ``plan_with_nthreads(k)`` makes every subsequently created plan execute
 over a k-device mesh (see :mod:`fftw3_tpu.parallel.smp` — vector loops
 shard with zero collectives, all-axes rank>=2 problems run the slab

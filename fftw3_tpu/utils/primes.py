@@ -1,6 +1,6 @@
 """Prime/factor arithmetic for the planner.
 
-TPU-native re-implementation of FFTW's kernel prime helpers
+Re-implementation of FFTW's kernel prime helpers
 (reference ``fftw/fftw_api.c:15750-15915``: ``fftw_is_prime``,
 ``fftw_power_mod``, ``fftw_find_generator``, ``fftw_factors_into_small_primes``,
 ``fftw_choose_radix``).  Pure host-side Python — runs at plan time only.

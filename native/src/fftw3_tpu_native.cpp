@@ -1,6 +1,6 @@
 // fftw3_tpu native runtime tier (C++17, C ABI for ctypes).
 //
-// TPU-native re-implementation of the reference's native kernel-tier
+// Re-implementation of the reference's native kernel-tier
 // services (the C "kernel" of fftw/fftw_api.c, SURVEY.md §2.1), covering
 // the pieces that run on the HOST at plan time and must be fast,
 // deterministic, and shareable across processes:
@@ -18,7 +18,7 @@
 //     Python planner so all hosts pick the same plans (the MPI wisdom-vote
 //     property, fftw/mpi/api.c:60-130, achieved by determinism instead)
 //
-// The GPU/TPU compute path stays in XLA/Pallas; this library is the
+// The device compute path stays in XLA; this library is the
 // host-side runtime around it.  Python binds via ctypes
 // (fftw3_tpu/native.py) and falls back to pure Python when the shared
 // library is unavailable.
@@ -341,24 +341,23 @@ API int64_t ftpu_wisdom_export(void* sv, char* out, int64_t cap) {
 
 namespace search {
 
+// planner.HardwareModel's f32 rates; Python passes them from the device
+// table (fftw3_tpu/devices.py)
 struct HW {
-  double hbm_bw = 8.0e11;
-  double peak_flops = 4.0e13;
-  double vpu_flops = 4.0e12;
-  double mxu_k = 128.0;
-  double gather_penalty = 4.0;
-  double matmul_eff(double k) const { return std::min(k, mxu_k) / mxu_k; }
+  double hbm_bw = 0.0;
+  double matmul_flops = 0.0;
+  double elem_flops = 0.0;
+  double matmul_k = 1.0;
+  double gather_penalty = 0.0;
+  double matmul_eff(double k) const {
+    return std::min(k, matmul_k) / matmul_k;
+  }
 };
 
 struct Params {
   HW hw;
   int direct_max = 128;
   int generic_max = 2048;
-  int allow_pallas = 0;      // backend-dependent; Python decides
-  int pallas_min_n = 128;
-  int pallas_max_n = 2048;
-  int pallas_max_radix = 256;
-  int pallas_max_single = 256;
   int r2r_generic_max = 4096;
   int patience = 0;          // ESTIMATE ladder position (candidate width)
 };
@@ -367,7 +366,6 @@ struct Node {
   std::string alg;
   std::string kind;          // r2r_matmul only
   long n = 0, p = 0, m = 0;
-  std::vector<int> radices;
   int child = -1;            // index into pool
   int child2 = -1;           // second child of the split r2r algs
 };
@@ -389,37 +387,24 @@ double node_cost(const Ctx& c, const Node& nd) {
   if (nd.alg == "nop" || nd.n == 1) return 0.0;
   if (nd.alg == "direct")
     return 2 * el * n / hw.hbm_bw +
-           8.0 * n * n / (hw.peak_flops * hw.matmul_eff(n));
+           8.0 * n * n / (hw.matmul_flops * hw.matmul_eff(n));
   if (nd.alg == "mixed") {
     double p = (double)nd.p;
     // ~2 HBM round trips per XLA stage (einsum + final axis swap);
     // keep in sync with the Python planner
     double stage = 4 * el * n / hw.hbm_bw +
-                   8.0 * p * n / (hw.peak_flops * hw.matmul_eff(p)) +
-                   6.0 * n / hw.vpu_flops;
+                   8.0 * p * n / (hw.matmul_flops * hw.matmul_eff(p)) +
+                   6.0 * n / hw.elem_flops;
     return stage + p * cost_of(c, nd.child);
-  }
-  if (nd.alg == "pallas") {
-    double t = 1.25 * 2 * el * n / hw.hbm_bw;
-    for (int p : nd.radices)
-      t += 6.0 * p * n / (hw.peak_flops * hw.matmul_eff(p));
-    return t;
-  }
-  if (nd.alg == "pallas4") {
-    // three HBM passes + MXU time of each kernel's internal schedule
-    double t = 3.3 * 2 * el * n / hw.hbm_bw;
-    for (int r : nd.radices)   // holds rad(p) ++ rad(q)
-      t += 6.0 * r * n / (hw.peak_flops * hw.matmul_eff(r));
-    return t;
   }
   if (nd.alg == "bluestein") {
     double m = (double)nd.m;
-    double extra = 6.0 * el * m / hw.hbm_bw + 12.0 * m / hw.vpu_flops;
+    double extra = 6.0 * el * m / hw.hbm_bw + 12.0 * m / hw.elem_flops;
     return 2 * cost_of(c, nd.child) + extra;
   }
   if (nd.alg == "rader") {
-    double extra = c.prm.hw.gather_penalty * 4 * el * n / hw.hbm_bw;
-    return 2 * cost_of(c, nd.child) + 6.0 * n / hw.vpu_flops + extra;
+    double extra = hw.gather_penalty * 4 * el * n / hw.hbm_bw;
+    return 2 * cost_of(c, nd.child) + 6.0 * n / hw.elem_flops + extra;
   }
   return 1e30;
 }
@@ -464,66 +449,6 @@ std::vector<long> mixed_factors(long n, int direct_max, int patience) {
   return divs;
 }
 
-// mirror of pallas_stockham.choose_radices: single stage up to
-// pallas_max_single, else the two-factor split minimizing the measured
-// ASYMMETRIC stage-cost curves s1(p) = 230/p + p/9 (first stage) and
-// s2(q) = 230/q + q (second stage, steeper linear term under the
-// stacked-G kernels), radices < 8 heavily penalized.
-double pallas_stage_cost(long p) { return 230.0 / p + p / 9.0; }
-double pallas_stage2_cost(long q) { return 230.0 / q + (double)q; }
-
-// mirror of pallas_stockham.choose_fourstep: p pow2 in [8,128], largest
-// first, q a 128-multiple inside the fused-kernel window
-bool pallas_fourstep(long n, int min_n, int max_n, int max_radix,
-                     int max_single, long* out_p, long* out_q);
-
-bool pallas_radices(long n, int max_radix, int max_single,
-                    std::vector<int>& out) {
-  if (n <= max_single) {
-    out = {(int)n};
-    return true;
-  }
-  auto divs = divisors_of(n);
-  bool have = false;
-  double best_cost = 0;
-  long bp = 0, bq = 0;
-  for (auto it = divs.rbegin(); it != divs.rend(); ++it) {
-    long p = *it, q = n / p;
-    if (!(q >= 2 && p >= q && p <= max_radix)) continue;
-    double cost = pallas_stage_cost(p) + pallas_stage2_cost(q);
-    if (q < 8) cost += 1000.0;
-    if (!have || cost < best_cost) {
-      have = true;
-      best_cost = cost;
-      bp = p;
-      bq = q;
-    }
-  }
-  if (!have) return false;
-  out = {(int)bp, (int)bq};
-  return true;
-}
-
-bool pallas_fourstep(long n, int min_n, int max_n, int max_radix,
-                     int max_single, long* out_p, long* out_q) {
-  const int inner_tile = 128;
-  bool have = false;
-  for (long p : {8L, 16L, 32L, 64L, 128L}) {
-    if (n % p) continue;
-    long q = n / p;
-    if (q % inner_tile || q < min_n || q > max_n) continue;
-    std::vector<int> tmp;
-    if (!pallas_radices(q, max_radix, max_single, tmp)) continue;
-    if (!pallas_radices(p, max_radix, max_single, tmp)) continue;
-    if (!have || p > *out_p) {
-      have = true;
-      *out_p = p;
-      *out_q = q;
-    }
-  }
-  return have;
-}
-
 int plan_c2c(Ctx& c, long n);
 
 int add_node(Ctx& c, Node nd) {
@@ -550,33 +475,6 @@ int plan_c2c(Ctx& c, long n) {
     nd.alg = "direct";
     nd.n = n;
     cands.push_back(add_node(c, nd));
-  }
-  if (P.allow_pallas && n >= P.pallas_min_n && n <= P.pallas_max_n) {
-    std::vector<int> rad;
-    if (pallas_radices(n, P.pallas_max_radix, P.pallas_max_single, rad)) {
-      Node nd;
-      nd.alg = "pallas";
-      nd.n = n;
-      nd.radices = rad;
-      cands.push_back(add_node(c, nd));
-    }
-  }
-  if (P.allow_pallas && n > P.pallas_max_n) {
-    long fp = 0, fq = 0;
-    if (pallas_fourstep(n, P.pallas_min_n, P.pallas_max_n,
-                        P.pallas_max_radix, P.pallas_max_single, &fp, &fq)) {
-      Node nd;
-      nd.alg = "pallas4";
-      nd.n = n;
-      nd.p = fp;
-      nd.m = fq;
-      std::vector<int> rp, rq;
-      pallas_radices(fp, P.pallas_max_radix, P.pallas_max_single, rp);
-      pallas_radices(fq, P.pallas_max_radix, P.pallas_max_single, rq);
-      nd.radices = rp;
-      nd.radices.insert(nd.radices.end(), rq.begin(), rq.end());
-      cands.push_back(add_node(c, nd));
-    }
   }
   for (long p : mixed_factors(n, P.direct_max, P.patience)) {
     Node nd;
@@ -643,17 +541,10 @@ double kind_cost(Ctx& c, const std::string& kind, int idx);
 double real_cost(Ctx& c, const Node& nd) {
   const HW& hw = c.prm.hw;
   double n = (double)nd.n;
-  if (nd.alg == "pallas_r2c" || nd.alg == "pallas_c2r") {
-    double m = (double)(nd.n / 2);
-    double t = 1.1 * 8.0 * n / hw.hbm_bw;
-    for (int p : nd.radices)
-      t += 6.0 * p * m / (hw.peak_flops * hw.matmul_eff(p));
-    return t;
-  }
   if (nd.alg == "r2c_dense" || nd.alg == "c2r_dense")
     return 12.0 * n / hw.hbm_bw +
            2.0 * n * (double)(nd.n / 2 + 1) /
-               (hw.peak_flops * hw.matmul_eff(n));
+               (hw.matmul_flops * hw.matmul_eff(n));
   if (nd.alg == "r2c_pack" || nd.alg == "c2r_pack")
     return 0.55 * cost_of(c, nd.child) + 16.0 * n / hw.hbm_bw;
   return cost_of(c, nd.child) + 16.0 * n / hw.hbm_bw;  // via_c2c
@@ -666,16 +557,6 @@ int plan_real(Ctx& c, const std::string& kind, long n) {
   const Params& P = c.prm;
   bool is_r2c = kind == "r2c";
   std::vector<int> cands;
-  std::vector<int> rad;
-  if (P.allow_pallas && n % 2 == 0 && n / 2 >= P.pallas_min_n &&
-      n / 2 <= P.pallas_max_n &&
-      pallas_radices(n / 2, P.pallas_max_radix, P.pallas_max_single, rad)) {
-    Node nd;
-    nd.alg = is_r2c ? "pallas_r2c" : "pallas_c2r";
-    nd.n = n;
-    nd.radices = rad;
-    cands.push_back(add_node(c, nd));
-  }
   if (n <= P.r2r_generic_max) {
     Node nd;
     nd.alg = is_r2c ? "r2c_dense" : "c2r_dense";
@@ -720,7 +601,7 @@ double r2r_cost(Ctx& c, const Node& nd) {
   double n = (double)nd.n;
   if (nd.alg == "r2r_matmul")
     return 8.0 * n / hw.hbm_bw +
-           2.0 * n * n / (hw.peak_flops * hw.matmul_eff(n));
+           2.0 * n * n / (hw.matmul_flops * hw.matmul_eff(n));
   if (nd.alg == "redft00_split" || nd.alg == "rodft00_split")
     return r2r_cost(c, c.pool[nd.child]) + r2r_cost(c, c.pool[nd.child2]) +
            8.0 * n / hw.hbm_bw;
@@ -828,20 +709,6 @@ void to_json(const Ctx& c, int idx, std::string& out) {
     snprintf(buf, sizeof buf, ", \"m\": %ld", nd.m);
     out += buf;
   }
-  if (nd.alg == "pallas" || nd.alg == "pallas_r2c" ||
-      nd.alg == "pallas_c2r") {
-    out += ", \"radices\": [";
-    for (size_t i = 0; i < nd.radices.size(); ++i) {
-      if (i) out += ", ";
-      snprintf(buf, sizeof buf, "%d", nd.radices[i]);
-      out += buf;
-    }
-    out += "]";
-  }
-  if (nd.alg == "pallas4") {
-    snprintf(buf, sizeof buf, ", \"p\": %ld, \"q\": %ld", nd.p, nd.m);
-    out += buf;
-  }
   if (nd.child >= 0) {
     out += ", \"child\": ";
     to_json(c, nd.child, out);
@@ -853,17 +720,28 @@ void to_json(const Ctx& c, int idx, std::string& out) {
 
 // Plan a c2c transform of size n at ESTIMATE patience; writes the JSON
 // descriptor tree.  Returns required buffer length (call again if > cap).
-API int64_t ftpu_plan_c2c(int64_t n, int32_t patience, int32_t allow_pallas,
-                          double hbm_bw, double peak_flops, double vpu_flops,
+static search::HW make_hw(double hbm_bw, double matmul_flops,
+                          double elem_flops, double matmul_k,
+                          double gather_penalty) {
+  search::HW hw;
+  hw.hbm_bw = hbm_bw;
+  hw.matmul_flops = matmul_flops;
+  hw.elem_flops = elem_flops;
+  hw.matmul_k = matmul_k;
+  hw.gather_penalty = gather_penalty;
+  return hw;
+}
+
+API int64_t ftpu_plan_c2c(int64_t n, int32_t patience, double hbm_bw,
+                          double matmul_flops, double elem_flops,
+                          double matmul_k, double gather_penalty,
                           int32_t direct_max, int32_t generic_max,
                           char* out, int64_t cap) {
   search::Ctx c;
-  c.prm.hw.hbm_bw = hbm_bw;
-  c.prm.hw.peak_flops = peak_flops;
-  c.prm.hw.vpu_flops = vpu_flops;
+  c.prm.hw = make_hw(hbm_bw, matmul_flops, elem_flops, matmul_k,
+                     gather_penalty);
   c.prm.direct_max = direct_max;
   c.prm.generic_max = generic_max;
-  c.prm.allow_pallas = allow_pallas;
   c.prm.patience = patience;
   int root = search::plan_c2c(c, (long)n);
   if (root < 0) return -1;
@@ -876,19 +754,17 @@ API int64_t ftpu_plan_c2c(int64_t n, int32_t patience, int32_t allow_pallas,
 // Plan ANY kind ("c2c", "r2c", "c2r", or an r2r kind name like "redft10")
 // at ESTIMATE patience; same contract as ftpu_plan_c2c.
 API int64_t ftpu_plan_kind(const char* kind, int64_t n, int32_t patience,
-                           int32_t allow_pallas, double hbm_bw,
-                           double peak_flops, double vpu_flops,
-                           int32_t direct_max, int32_t generic_max,
-                           int32_t r2r_generic_max,
+                           double hbm_bw, double matmul_flops,
+                           double elem_flops, double matmul_k,
+                           double gather_penalty, int32_t direct_max,
+                           int32_t generic_max, int32_t r2r_generic_max,
                            char* out, int64_t cap) {
   search::Ctx c;
-  c.prm.hw.hbm_bw = hbm_bw;
-  c.prm.hw.peak_flops = peak_flops;
-  c.prm.hw.vpu_flops = vpu_flops;
+  c.prm.hw = make_hw(hbm_bw, matmul_flops, elem_flops, matmul_k,
+                     gather_penalty);
   c.prm.direct_max = direct_max;
   c.prm.generic_max = generic_max;
   c.prm.r2r_generic_max = r2r_generic_max;
-  c.prm.allow_pallas = allow_pallas;
   c.prm.patience = patience;
   int root = search::plan_kind(c, std::string(kind), (long)n);
   if (root < 0) return -1;

@@ -132,99 +132,3 @@ def test_f64_cost_model_prefers_df32():
     # matmul algs (emulation penalty), keeping f32 rankings untouched
     mixed = next(d for d in cands if d["alg"] == "mixed")
     assert pl._cost("c2c", mixed, f64=True) > pl._cost("c2c", mixed)
-
-
-class TestDf32Pallas:
-    """The fused Pallas df32 kernel ("df32p"): whole double-float pipeline
-    VMEM-resident — one HBM pass vs one sweep per stage on the XLA df32
-    path.  Butterfly constants travel as kernel OPERANDS: XLA's algebraic
-    simplifier reassociates constant products (ah*bh + ah*bl ->
-    ah*(bh+bl)), collapsing the error-free transforms to f32 when the df
-    twiddles are trace-time literals (measured: 1e-7 instead of 5e-15,
-    firing context-dependently)."""
-
-    @pytest.fixture(autouse=True)
-    def _interpret(self):
-        old = config.pallas_mode
-        config.pallas_mode = "interpret"
-        yield
-        config.pallas_mode = old
-
-    @pytest.mark.parametrize("n,rad", [(256, [16, 16]), (1024, [64, 16]),
-                                       (1024, [32, 32]), (240, [16, 15]),
-                                       (1000, [40, 25])])
-    def test_double_contract(self, rng, n, rad):
-        fn = jax.jit(df32.build_df32_pallas_split(
-            {"alg": "df32p", "n": n, "radices": rad}, -1, np.float64))
-        xr = rng.standard_normal((2, n))
-        xi = rng.standard_normal((2, n))
-        yr, yi = fn(xr, xi)
-        got = np.asarray(yr) + 1j * np.asarray(yi)
-        ref = np.fft.fft(xr + 1j * xi, axis=1)
-        err = np.max(np.abs(got - ref)) / np.max(np.abs(ref))
-        assert err < 1e-12, (n, rad, err)     # well inside the 1e-10
-
-    def test_roundtrip_and_grad(self, rng):
-        n = 256
-        f = df32.build_df32_pallas_split(
-            {"alg": "df32p", "n": n, "radices": [16, 16]}, -1, np.float64)
-        b = df32.build_df32_pallas_split(
-            {"alg": "df32p", "n": n, "radices": [16, 16]}, +1, np.float64)
-        xr = rng.standard_normal((2, n))
-        xi = rng.standard_normal((2, n))
-        yr, yi = f(xr, xi)
-        zr, zi = b(yr, yi)
-        assert np.max(np.abs(np.asarray(zr) / n - xr)) < 1e-12
-        # custom VJP: adjoint of unnormalized F is F_{-sign}
-        x = jnp.asarray(xr)
-        def loss(a):
-            yr2, yi2 = f(a, jnp.zeros_like(a))
-            return jnp.sum(yr2 ** 2 + yi2 ** 2)
-
-        g = jax.grad(loss)(x)
-        assert np.allclose(np.asarray(g), 2 * n * np.asarray(x),
-                           rtol=1e-10, atol=1e-8)
-
-    def test_planner_races_df32p_at_measure(self, monkeypatch):
-        from fftw3_tpu import planner as planner_mod
-        # candidate enumeration recursively PLANS children; stub the
-        # timing pass so this stays an enumeration test
-        monkeypatch.setattr(
-            planner_mod.Planner, "_measure_best",
-            lambda self, kind, n, rdtype, cands, *a, **k: (cands[0], 0.0),
-            raising=True)
-        pl = Planner()
-        cands = pl._candidates("c2c", 1024, np.float64,
-                               K.PATIENCE_MEASURE)
-        assert any(c["alg"] == "df32p" for c in cands)
-        d = next(c for c in cands if c["alg"] == "df32p")
-        assert validate_desc("c2c", 1024, d)
-        assert planner_mod.sprint_desc(d).startswith("(df32p-1024")
-        # ESTIMATE never emits it (compile risk stays MEASURE-gated)
-        est = pl._candidates("c2c", 1024, np.float64, K.PATIENCE_ESTIMATE)
-        assert not any(c["alg"] == "df32p" for c in est)
-
-    def test_wisdom_served_plan_end_to_end(self, rng):
-        from fftw3_tpu.planner import the_planner
-        ftpu.forget_wisdom()
-        key = the_planner._key("c2c", 512, np.float64, 4)
-        the_planner.wisdom[key] = {
-            "desc": {"alg": "df32p", "n": 512, "radices": [32, 16]},
-            "patience": 99, "cost": 0.0}
-        try:
-            p = ftpu.plan_many_dft([512], howmany=4, dtype="complex128")
-            assert "df32p" in repr(p)
-            x = (rng.standard_normal((4, 512))
-                 + 1j * rng.standard_normal((4, 512)))
-            got = np.asarray(p.execute(x.astype(np.complex128)))
-            ref = np.fft.fft(x, axis=1)
-            assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 1e-12
-            assert p.flops()[2] == 0.0        # no fma: pure VPU
-        finally:
-            ftpu.forget_wisdom()
-
-    def test_applicable_gate(self):
-        assert df32.df32p_applicable(1024)
-        assert df32.df32p_applicable(240)
-        assert not df32.df32p_applicable(2048)     # above the df window
-        assert not df32.df32p_applicable(1009)     # prime

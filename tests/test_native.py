@@ -8,7 +8,7 @@ import json
 import numpy as np
 import pytest
 
-from fftw3_tpu import config, native
+from fftw3_tpu import config, devices, native
 from fftw3_tpu import planner as planner_mod
 from fftw3_tpu.utils import primes
 
@@ -84,25 +84,35 @@ class TestWisdomStore:
         assert len(s) == 0
 
 
+#: every entry of the device table: the C++ mirror must reproduce the
+#: Python ESTIMATE policy under each device's cost model
+DEVICE_KINDS = sorted(devices.DEVICES)
+
+
+def _python_plan(kind, n, hw):
+    """Pure-Python ESTIMATE search under the cost model ``hw``."""
+    from fftw3_tpu import kinds as K
+    old = config.use_native
+    config.use_native = False
+    try:
+        return planner_mod.Planner(hw=hw)._plan(kind, n, np.float32,
+                                                K.PATIENCE_ESTIMATE)
+    finally:
+        config.use_native = old
+
+
 class TestNativePlannerEquality:
     """Native ESTIMATE search == Python ESTIMATE search, descriptor for
-    descriptor, over a broad size sweep."""
+    descriptor, over a broad size sweep and every device-table entry."""
 
+    @pytest.mark.parametrize("device_kind", DEVICE_KINDS)
     @pytest.mark.parametrize("n", [1, 2, 8, 64, 128, 129, 256, 360, 480,
                                    1000, 1009, 1024, 2048, 4096, 6144,
                                    10000, 12289, 65536])
-    def test_equal_plans(self, n):
-        py = planner_mod.Planner()
-        # force pure-Python search
-        old = config.use_native
-        config.use_native = False
-        try:
-            want = py.plan_c2c(n, np.float32, 0)
-        finally:
-            config.use_native = old
-        from fftw3_tpu.ops import pallas_stockham
-        allow = pallas_stockham.backend_allows(np.float32)
-        got = native.plan_c2c(n, 0, allow, planner_mod.HW)
+    def test_equal_plans(self, n, device_kind):
+        hw = planner_mod.HardwareModel.for_kind(device_kind)
+        want = _python_plan("c2c", n, hw)
+        got = native.plan_c2c(n, 0, hw)
         assert got == want, (n, got, want)
 
     def test_planner_routes_through_native(self):
@@ -118,54 +128,19 @@ class TestNativePlannerEquality:
         assert pl.stats["nplan"] == 1
 
 
-class TestNativePallasEquality:
-    """With the pallas tier force-enabled, native and Python ESTIMATE
-    searches still agree (including pallas/pallas4 candidates)."""
-
-    @pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192,
-                                   16384, 65536, 131072, 1000])
-    def test_equal_with_pallas(self, n):
-        from fftw3_tpu.ops import pallas_stockham
-        old_mode = config.pallas_mode
-        old_native = config.use_native
-        config.pallas_mode = "interpret"     # backend_allows -> True on CPU
-        try:
-            config.use_native = False
-            py = planner_mod.Planner()
-            want = py.plan_c2c(n, np.float32, 0)
-            got = native.plan_c2c(n, 0, True, planner_mod.HW)
-        finally:
-            config.pallas_mode = old_mode
-            config.use_native = old_native
-        assert got == want, (n, got, want)
-
-
 class TestNativeAllKinds:
     """The C++ tier's ESTIMATE search must EQUAL the Python policy for
     every transform kind (determinism across hosts; CLAUDE.md invariant)."""
 
+    @pytest.mark.parametrize("device_kind", DEVICE_KINDS)
     @pytest.mark.parametrize("kind", ["r2c", "c2r"])
     @pytest.mark.parametrize("n", [16, 100, 256, 1000, 1024, 2048, 4096,
                                    8192, 65536])
-    def test_real_kinds_equal(self, kind, n):
-        if not native.available():
-            pytest.skip("native library unavailable")
-        from fftw3_tpu import config
+    def test_real_kinds_equal(self, kind, n, device_kind):
         from fftw3_tpu import kinds as K
-        from fftw3_tpu.planner import Planner
-        pl = Planner()
-        old = config.use_native
-        try:
-            config.use_native = False
-            py = pl._plan(kind, n, np.float32, K.PATIENCE_ESTIMATE)
-        finally:
-            config.use_native = old
-        # allow_pallas must match the Python backend gate (CPU tests: off)
-        from fftw3_tpu.ops import pallas_stockham
-        nat = native.plan_kind(
-            kind, n, K.PATIENCE_ESTIMATE,
-            pallas_stockham.backend_allows(np.float32), pl.hw)
-        assert nat == py
+        hw = planner_mod.HardwareModel.for_kind(device_kind)
+        nat = native.plan_kind(kind, n, K.PATIENCE_ESTIMATE, hw)
+        assert nat == _python_plan(kind, n, hw)
 
     @pytest.mark.parametrize("kind", ["r2hc", "hc2r", "dht", "redft00",
                                       "redft01", "redft10", "redft11",
@@ -173,43 +148,18 @@ class TestNativeAllKinds:
                                       "rodft11"])
     @pytest.mark.parametrize("n", [8, 33, 100, 512, 1025, 4097, 8192])
     def test_r2r_kinds_equal(self, kind, n):
-        if not native.available():
-            pytest.skip("native library unavailable")
-        from fftw3_tpu import config
         from fftw3_tpu import kinds as K
-        from fftw3_tpu.ops import pallas_stockham
-        from fftw3_tpu.planner import Planner
-        pl = Planner()
-        old = config.use_native
-        try:
-            config.use_native = False
-            py = pl._plan(kind, n, np.float32, K.PATIENCE_ESTIMATE)
-        finally:
-            config.use_native = old
-        nat = native.plan_kind(
-            kind, n, K.PATIENCE_ESTIMATE,
-            pallas_stockham.backend_allows(np.float32), pl.hw)
-        assert nat == py, f"{kind} n={n}"
+        hw = planner_mod.HardwareModel.for_kind("cpu")
+        nat = native.plan_kind(kind, n, K.PATIENCE_ESTIMATE, hw)
+        assert nat == _python_plan(kind, n, hw), f"{kind} n={n}"
 
-    @pytest.mark.parametrize("kind,n", [("r2c", 2048), ("c2r", 2048),
-                                        ("r2c", 4096), ("redft10", 2048),
-                                        ("redft11", 8193),
-                                        ("redft00", 8193)])
-    def test_equal_with_pallas_enabled(self, kind, n):
-        """The pallas-gated branches must also match (the on-chip case)."""
-        if not native.available():
-            pytest.skip("native library unavailable")
-        from fftw3_tpu import config
+    @pytest.mark.parametrize("kind", ["dht", "redft00", "redft10",
+                                      "redft11", "rodft00", "rodft11"])
+    @pytest.mark.parametrize("n", [33, 512, 1025, 8192])
+    def test_r2r_kinds_equal_h200(self, kind, n):
+        """The r2r reductions under the GPU's cost model, whose matrix
+        rate moves the dense/reduction crossovers."""
         from fftw3_tpu import kinds as K
-        from fftw3_tpu.planner import Planner
-        pl = Planner()
-        old_mode, old_nat = config.pallas_mode, config.use_native
-        try:
-            config.pallas_mode = "interpret"      # backend_allows -> True
-            config.use_native = False
-            py = pl._plan(kind, n, np.float32, K.PATIENCE_ESTIMATE)
-            nat = native.plan_kind(kind, n, K.PATIENCE_ESTIMATE, True,
-                                   pl.hw)
-        finally:
-            config.pallas_mode, config.use_native = old_mode, old_nat
-        assert nat == py, f"{kind} n={n}"
+        hw = planner_mod.HardwareModel.for_kind("NVIDIA H200")
+        nat = native.plan_kind(kind, n, K.PATIENCE_ESTIMATE, hw)
+        assert nat == _python_plan(kind, n, hw), f"{kind} n={n}"

@@ -109,30 +109,3 @@ def test_irfftn_non_hermitian_input_matches_numpy(rng):
     got = np.asarray(ftpu.irfft2(G.astype(np.complex128), s=(ny, nx)))
     want = np.fft.irfft2(G, s=(ny, nx))
     np.testing.assert_allclose(got, want, atol=1e-10)
-
-
-@pytest.mark.parametrize("shape,axes", [((6, 64, 32), (1, 2)),
-                                        ((4, 16, 16, 8), (1, 2, 3))])
-def test_r2c_dc_nyquist_pack_opt_in(rng, shape, axes, monkeypatch):
-    """The DC/Nyquist column pack (lane alignment for rank>=2 r2c) is
-    opt-in since round 4 — the packed composition miscomputes on the real
-    chip at large sizes (config.r2c_dc_nyquist_pack doc) — but its MATH
-    stays covered here: pack-on must match numpy and the pack-off plan
-    exactly (same transform, different lane layout mid-pipeline)."""
-    import fftw3_tpu as ftpu
-    from fftw3_tpu import config
-
-    x = rng.standard_normal(shape).astype(np.float32)
-    monkeypatch.setattr(config, "r2c_dc_nyquist_pack", False)
-    ftpu.forget_wisdom()
-    y_off = np.asarray(ftpu.plan_dft_r2c(shape, axes=axes,
-                                         dtype="float32").apply(x))
-    monkeypatch.setattr(config, "r2c_dc_nyquist_pack", True)
-    ftpu.forget_wisdom()
-    y_on = np.asarray(ftpu.plan_dft_r2c(shape, axes=axes,
-                                        dtype="float32").apply(x))
-    ftpu.forget_wisdom()
-    ref = np.fft.rfftn(x.astype(np.float64), axes=axes)
-    sc = np.max(np.abs(ref))
-    assert np.max(np.abs(y_on - ref)) / sc < 1e-4
-    assert np.max(np.abs(y_on - y_off)) / sc < 1e-4

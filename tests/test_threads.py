@@ -39,26 +39,24 @@ def test_vector_plan_shards_howmany(rng, nthreads4):
     assert len(y.sharding.device_set) == 4
 
 
-def test_vector_plan_pallas_solver(rng, nthreads4):
-    """A howmany plan whose axis solver is a Pallas kernel must still
-    shard: pallas_call outputs carry no vma annotation, so the shard_map
-    needs check_vma=False (regression — used to raise at execute time,
-    after parallel_executor's build-time guard had already passed)."""
-    from fftw3_tpu import config
+def test_vector_plan_xla_solver(rng, nthreads4):
+    """A howmany plan whose axis solver is XLA's own FFT (pinned through
+    wisdom) must still shard: the custom-call output passes the
+    shard_map's build and runs on all 4 devices."""
+    from fftw3_tpu.planner import the_planner
     x = (rng.standard_normal((8, 512)) + 1j * rng.standard_normal((8, 512))
          ).astype(np.complex64)
-    old = config.pallas_mode
-    config.pallas_mode = "interpret"
+    ftpu.forget_wisdom()
     try:
-        ftpu.forget_wisdom()
+        the_planner.wisdom[the_planner._key("c2c", 512, np.float32, 8)] = {
+            "desc": {"alg": "xla", "n": 512}, "patience": 99, "cost": 0.0}
         p = ftpu.plan_many_dft([512], howmany=8, dtype="complex64")
         assert p._par_fn is not None
-        assert "pallas" in repr(p)
+        assert "xla" in repr(p)
         y = p.execute(x)
         assert relerr(y, np.fft.fft(x.astype(np.complex128), axis=1)) < 1e-3
         assert len(y.sharding.device_set) == 4
     finally:
-        config.pallas_mode = old
         ftpu.forget_wisdom()
 
 
